@@ -5,7 +5,7 @@ Every windowed-quantile engine choice must be flippable at runtime through
 agree on the same inputs (bit-identical where the engines share extraction
 arithmetic, ulp-level across the static-gamma FMA boundary — see the
 precision note on ``windowed_group_quantile``).  Reference options pattern:
-``/root/reference/src/xsdba/options.py:28-83``.
+``xsdba/options.py:28-83``.
 """
 
 import jax.numpy as jnp
@@ -47,7 +47,7 @@ def test_selection_backend_option_flip():
 
 def test_selection_mode_option_bit_identical():
     """emit and gather extraction engines are bit-identical; the ``auto``
-    default resolves to one of them."""
+    default resolves to the platform's engine."""
     gi, x, q = _problem(window=5)
     plan = gi.merge_plan
     xj = jnp.asarray(x)
@@ -61,23 +61,9 @@ def test_selection_mode_option_bit_identical():
     np.testing.assert_array_equal(a, c)
 
 
-def test_selection_sort_option_bit_identical():
-    """lax.sort vs the bitonic network stage-1 (``xla`` = the CPU-testable
-    lowering of the TPU ``pallas`` default), flipped through the option,
-    must be bit-identical — including a partial-NaN row."""
-    gi, x, q = _problem(window=5)
-    plan = gi.merge_plan
-    xj = jnp.asarray(x)
-    with set_options(selection_sort="lax"):
-        a = np.asarray(selection_windowed_quantile(xj, plan, q))
-    with set_options(selection_sort="xla"):
-        b = np.asarray(selection_windowed_quantile(xj, plan, q))
-    np.testing.assert_array_equal(a, b)
-
-
 def test_extract_mode_option_bit_identical():
     """strip / flat / matmul static extraction engines, flipped through the
-    option, must be bit-identical; ``auto`` honors ``extract_flat``."""
+    option, must be bit-identical; ``auto`` is the flat gather."""
     gi, x, q = _problem(window=5, seed=23)
     x = np.where(np.isnan(x), 1.0, x).astype(np.float32)  # static path: finite
     plan = gi.merge_plan
@@ -86,26 +72,71 @@ def test_extract_mode_option_bit_identical():
         for mode in ("strip", "flat", "matmul"):
             with set_options(extract_mode=mode):
                 outs[mode] = np.asarray(windowed_group_quantile(x, plan, q))
-        with set_options(extract_flat=True):
-            outs["compat"] = np.asarray(windowed_group_quantile(x, plan, q))
-    for k in ("flat", "matmul", "compat"):
+        with set_options(extract_mode="auto"):
+            outs["auto"] = np.asarray(windowed_group_quantile(x, plan, q))
+    for k in ("flat", "matmul", "auto"):
         np.testing.assert_array_equal(outs[k], outs["strip"], err_msg=k)
 
 
-def test_fuse_fold_classes_option_bit_identical():
-    """Fused all-classes fold vs per-class launches (interpret mode off-TPU),
-    flipped through the option, must be bit-identical."""
-    gi, x, q = _problem(window=31)
-    plan = gi.merge_plan
-    with set_options(selection_backend=False, fuse_fold_classes=True):
-        a = np.asarray(
-            windowed_group_quantile(x, plan, q, use_kernel=True, interpret=True)
-        )
-    with set_options(selection_backend=False, fuse_fold_classes=False):
-        b = np.asarray(
-            windowed_group_quantile(x, plan, q, use_kernel=True, interpret=True)
-        )
-    np.testing.assert_array_equal(a, b)
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_windowed_engine_chosen_by_platform(monkeypatch, backend):
+    """The windowed-quantile engine is a function of the platform (the
+    measured winner on each), overridable only through the engine options;
+    plans without interval membership take the merge engine everywhere."""
+    import jax
+
+    from xsdba_tpu.ops.quantile import windowed_engine
+
+    gi, _, q = _problem(window=5)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert windowed_engine(gi.merge_plan, q) == "gather"
+    with set_options(selection_mode="emit"):
+        assert windowed_engine(gi.merge_plan, q) == "emit"
+    with set_options(selection_backend=False):
+        assert windowed_engine(gi.merge_plan, q) == "merge"
+    t = date_range("1980-01-01", periods=366 * 4, freq="D", calendar="standard")
+    leap = Grouper("time.dayofyear", window=31).indexes(t).merge_plan
+    assert windowed_engine(leap, q) == "merge"
+
+
+def test_table_lookup_chosen_by_platform(monkeypatch):
+    """The partitioned table lookup takes the Triton kernel only on the GPU,
+    and only for the linear / constant f32 case it implements."""
+    import jax
+
+    from xsdba_tpu.ops.interp import use_triton_kernel
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert use_triton_kernel("linear", "constant", 50, jnp.float32)
+    assert not use_triton_kernel("cubic", "constant", 50, jnp.float32)
+    assert not use_triton_kernel("nearest", "constant", 50, jnp.float32)
+    assert not use_triton_kernel("linear", "nan", 50, jnp.float32)
+    assert not use_triton_kernel("linear", "constant", 50, jnp.float64)
+    assert not use_triton_kernel("linear", "constant", 200, jnp.float32)
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert not use_triton_kernel("linear", "constant", 50, jnp.float32)
+
+
+def test_main_path_imports_no_tpu_kernel():
+    """A windowed EQM train + adjust and a QDM monthly step import no Mosaic
+    TPU module (nothing in the package can reach one)."""
+    import sys
+
+    from xsdba_tpu import DataArray, EmpiricalQuantileMapping, QuantileDeltaMapping
+
+    t = date_range("1990-01-01", periods=365 * 3, freq="D", calendar="noleap")
+    rng = np.random.default_rng(4)
+    mk = lambda v: DataArray(v, ("time",), {"time": t}, {"units": "K"}, "tas")
+    ref, hist = mk(rng.normal(280, 3, len(t))), mk(rng.normal(282, 4, len(t)))
+    eqm = EmpiricalQuantileMapping.train(
+        ref, hist, group=Grouper("time.dayofyear", window=31), nquantiles=15
+    )
+    assert np.isfinite(np.asarray(eqm.adjust(hist).data)).all()
+    qdm = QuantileDeltaMapping.train(ref, hist, group="time.month", nquantiles=15)
+    assert np.isfinite(np.asarray(qdm.adjust(hist, interp="linear").data)).all()
+    # the Mosaic TPU lowering (every TPU Pallas module imports it)
+    mosaic = [m for m in sys.modules if m.split(".")[:4] == ["jax", "_src", "pallas", "mosaic"]]
+    assert not mosaic, mosaic
 
 
 def test_option_validation_and_view():

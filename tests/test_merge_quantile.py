@@ -1,4 +1,5 @@
-"""Parity of the shared-sort merge path vs the exact gather+re-sort path."""
+"""Parity of the windowed-quantile engines (XLA merge cascade, counting
+selection) vs the exact gather+re-sort path."""
 
 import numpy as np
 import pytest
@@ -30,57 +31,34 @@ def test_windowed_doy_quantile_matches_resort(calendar, window):
     q = np.array([0.01, 0.1, 0.5, 0.9, 0.99])
 
     want = np.asarray(grouped_nan_quantile(x, gi.gather_idx, q))
-    got = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, use_kernel=False))
+    got = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, engine="merge"))
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12, equal_nan=True)
 
 
-def test_windowed_doy_quantile_kernel_interpret():
-    t, x = _series("noleap", years=4, n_sites=2)
-    x = x.astype(np.float32)
-    gi = Grouper("time.dayofyear", window=7).indexes(t)
-    q = np.array([0.1, 0.5, 0.9], dtype=np.float32)
-    want = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, use_kernel=False))
-    got = np.asarray(
-        windowed_group_quantile(x, gi.merge_plan, q, use_kernel=True, interpret=True)
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-6, equal_nan=True)
-
-
+@pytest.mark.parametrize("engine", ["merge", "gather", "emit"])
 @pytest.mark.parametrize("window", [9, 13, 16, 21, 24, 27])
-def test_shared_fold_window_sweep_exact(window):
-    """The shared-dyadic fold across window sizes (classes=8 plans for
-    window 9-16, classes=16 for 17+; every dyadic-segment shape and
-    exact-crop layout) must match the plain cascade oracle exactly,
-    fused and per-class, including ymax compaction.  Window 24 pins the
-    2-run bootstrap classes (c = 0 and 8) whose exact-cropped first run
-    has a non-pow2 row count — the bootstrap re-sort must repad to pow2
-    before entering the merge network (regression: round 5)."""
+def test_window_sweep_engines_exact(window, engine):
+    """Every windowed-quantile engine across window sizes (odd and even,
+    below and above 16) against the jitted re-sort oracle, with scattered
+    NaNs: the selection engines are bit-identical, the merge cascade agrees
+    to ulp level (strict-f32 static gamma vs the device's FMA-contracted
+    one; see the precision note on ``windowed_group_quantile``)."""
+    import jax
     import jax.numpy as jnp
 
-    from xsdba_tpu.ops.pallas.merge_kernel import (
-        alternate_row_directions,
-        merged_window_rows_shared,
-        merged_window_rows_xla,
+    t, x = _series("noleap", years=3, n_sites=2, seed=100 + window)
+    gi = Grouper("time.dayofyear", window=window).indexes(t)
+    q = np.array([0.02, 0.1, 0.33, 0.5, 0.9, 0.98])
+    want = np.asarray(
+        jax.jit(lambda xx, qq: grouped_nan_quantile(xx, gi.gather_idx, qq))(
+            jnp.asarray(x), jnp.asarray(q)
+        )
     )
-
-    rng = np.random.default_rng(100 + window)
-    B, Dp, m, G, ymax = 4, 64, 16, 12, 11
-    x = rng.normal(0, 1, (B, Dp, m)).astype(np.float32)
-    x[:, :, ymax:] = np.inf
-    x.sort(axis=-1)
-    s_pad = jnp.asarray(alternate_row_directions(jnp.asarray(x)))
-    want = np.asarray(merged_window_rows_xla(s_pad, window, G))
-    for fuse in (True, False):
-        got = np.asarray(
-            merged_window_rows_shared(
-                s_pad, window, G, interpret=True, ymax=ymax, fuse_classes=fuse
-            )
-        )
-        w = min(got.shape[-1], want.shape[-1])
-        np.testing.assert_array_equal(
-            got[..., :w], want[..., :w], err_msg=f"window={window} fuse={fuse}"
-        )
-        assert np.all(got[..., w:] == np.inf) and np.all(want[..., w:] == np.inf)
+    got = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, engine=engine))
+    if engine == "merge":
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12, equal_nan=True)
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 def test_5d_grouping_merge_plan_matches():
@@ -89,7 +67,7 @@ def test_5d_grouping_merge_plan_matches():
     assert gi.merge_plan is not None
     q = np.array([0.25, 0.5, 0.75])
     want = np.asarray(grouped_nan_quantile(x, gi.gather_idx, q))
-    got = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, use_kernel=False))
+    got = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, engine="merge"))
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12, equal_nan=True)
 
 
@@ -283,11 +261,11 @@ def test_ocean_mask_rides_static_path():
     assert bool(_finite_probe(jnp.asarray(x)))  # homogeneous rows: static-safe
     assert not bool(_finite_probe(jnp.asarray(np.where(np.arange(len(t)) < 50, np.nan, x[:1]))))
 
-    # use_kernel pins the MERGE backend: the probe/static-extraction pair
+    # engine="merge" pins the MERGE backend: the probe/static-extraction pair
     # under test is merge-path machinery (the selection backend, the
     # default when the plan has interval membership, needs no probe)
     got = np.asarray(
-        windowed_group_quantile(jnp.asarray(x), gi.merge_plan, jnp.asarray(q), use_kernel=False)
+        windowed_group_quantile(jnp.asarray(x), gi.merge_plan, jnp.asarray(q), engine="merge")
     )
     assert _PLAN_FINITE_HINT.get(gi.merge_plan) is True  # stayed on the fast path
     assert np.isnan(got[2]).all() and np.isnan(got[3]).all()
@@ -334,8 +312,8 @@ def test_ocean_mask_fused_train_adjust():
 
 
 def test_flat_extract_matches_strip_bitexact():
-    """``extract_flat`` (one constant-index gather) must be bit-identical to
-    the strip extraction on finite data, including all-NaN (ocean-mask) rows.
+    """The flat constant-index gather must be bit-identical to the strip
+    extraction on finite data, including all-NaN (ocean-mask) rows.
     Flipped through the runtime option — the engine choice is a static arg of
     the compiled core, so each setting genuinely traces its own program."""
     from xsdba_tpu import set_options
@@ -346,18 +324,18 @@ def test_flat_extract_matches_strip_bitexact():
     gi = Grouper("time.dayofyear", window=5).indexes(t)
     q = np.linspace(0.02, 0.98, 20).astype(np.float32)
 
-    with set_options(extract_flat=False):
-        want = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, use_kernel=False))
-    with set_options(extract_flat=True):
-        got = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, use_kernel=False))
+    with set_options(extract_mode="strip"):
+        want = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, engine="merge"))
+    with set_options(extract_mode="flat"):
+        got = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, engine="merge"))
     np.testing.assert_array_equal(got, want)
     assert np.isnan(got[1]).all() and not np.isnan(got[0]).any()
-    # the one-hot MXU form (extract_mode="matmul", Precision.HIGHEST) must
+    # the one-hot matmul form (extract_mode="matmul", Precision.HIGHEST) must
     # also be bit-identical (it supersedes both under the mode option)
     with set_options(extract_mode="matmul"):
-        got_mm = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, use_kernel=False))
+        got_mm = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, engine="merge"))
     np.testing.assert_array_equal(got_mm, want)
-    # and extract_mode="flat" must route identically to extract_flat=True
-    with set_options(extract_mode="flat"):
-        got_f = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, use_kernel=False))
+    # and the default ("auto") is the flat gather
+    with set_options(extract_mode="auto"):
+        got_f = np.asarray(windowed_group_quantile(x, gi.merge_plan, q, engine="merge"))
     np.testing.assert_array_equal(got_f, want)

@@ -1,151 +1,79 @@
-"""Pallas kernel parity tests (interpreter mode on the CPU mesh)."""
+"""Triton-route table-lookup kernel vs its XLA reference (interpret mode on
+the CPU; the compiled kernel runs on the card in ``chip_smoke.py``)."""
 
 import numpy as np
 import pytest
 
 from xsdba_tpu.ops.interp import _compact_nan_pairs, _interp_unrolled
-from xsdba_tpu.ops.pallas import interp_table_pallas, pallas_available
+from xsdba_tpu.ops.pallas import interp_rows
 
 
-@pytest.mark.skipif(not pallas_available(), reason="pallas unavailable")
+def _tables(random, lead, nq):
+    import jax.numpy as jnp
+
+    xs = np.sort(random.normal(0, 2, lead + (nq,)), axis=-1)
+    ys = random.normal(0, 1, lead + (nq,))
+    # NaN pairs in some tables
+    rows_x, rows_y = xs.reshape(-1, nq), ys.reshape(-1, nq)  # views
+    rows_x[min(3, len(rows_x) - 1), 5] = np.nan
+    rows_y[1, 7] = np.nan
+    return _compact_nan_pairs(jnp.asarray(xs, jnp.float32), jnp.asarray(ys, jnp.float32))
+
+
 def test_interp_kernel_matches_xla(random):
+    """Row layout [R, L] with one table per row, including a single-pair
+    table, an empty table and NaN values."""
     import jax.numpy as jnp
 
     R, L, nq = 6, 300, 20
-    xs = np.sort(random.normal(size=(R, nq)), axis=-1)
-    ys = random.normal(size=(R, nq))
-    # a couple of NaN pairs
-    xs[0, 3] = np.nan
-    ys[1, 7] = np.nan
+    xsc, ysc, nv = _tables(random, (R,), nq)
+    nv = nv.at[4].set(1).at[5].set(0)
     v = random.normal(size=(R, L)) * 2
     v[2, 10] = np.nan
-
-    xsc, ysc, nv = _compact_nan_pairs(jnp.asarray(xs), jnp.asarray(ys))
-    want = np.asarray(_interp_unrolled(jnp.asarray(v), xsc, ysc, nv, "linear", "constant"))
-    got = np.asarray(interp_table_pallas(jnp.asarray(v), xsc, ysc, nv, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-6, equal_nan=True)
+    vj = jnp.asarray(v, jnp.float32)
+    want = np.asarray(_interp_unrolled(vj, xsc, ysc, nv, "linear", "constant"))
+    got = np.asarray(interp_rows(vj, xsc, ysc, nv, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6, equal_nan=True)
 
 
 def test_interp_kernel_3d_matches_xla(random):
-    """Partition-layout Pallas interp (the wired adjust-path kernel) must be
-    exactly the XLA unrolled path."""
+    """Partition layout [B, Gp, Lp] (the wired adjust-path call)."""
     import jax.numpy as jnp
 
-    from xsdba_tpu.ops.interp import _compact_nan_pairs, _interp_unrolled
-    from xsdba_tpu.ops.pallas.interp_kernel import interp_table_pallas_3d
-
     B, Gp, Lp, nq = 4, 16, 96, 13
-    xs = np.sort(random.normal(0, 2, (B, Gp, nq)), axis=-1)
-    ys = random.normal(0, 1, (B, Gp, nq))
-    # poke NaN pairs into some tables
-    xs[0, 3, 5] = np.nan
-    ys[1, 2, 7] = np.nan
+    xsc, ysc, nv = _tables(random, (B, Gp), nq)
     v = random.normal(0, 3, (B, Gp, Lp))
     v[2, 5, 10] = np.nan
-
-    xsc, ysc, nv = _compact_nan_pairs(jnp.asarray(xs, jnp.float32), jnp.asarray(ys, jnp.float32))
     vj = jnp.asarray(v, jnp.float32)
     want = np.asarray(_interp_unrolled(vj, xsc, ysc, nv, "linear", "constant"))
-    got = np.asarray(interp_table_pallas_3d(vj, xsc, ysc, nv, interpret=True))
+    got = np.asarray(interp_rows(vj, xsc, ysc, nv, interpret=True))
     # fp-identical up to FMA fusion differences (1-2 ulp f32)
     np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6, equal_nan=True)
 
 
-def _check_shared_dyadic_merge(random, cases, oracle="cascade"):
+def test_interp_kernel_masked_tail_and_broadcast_tables(random):
+    """Rows longer than one 1024-value block with a ragged tail, and tables
+    shared across the leading batch dim (QDM's quantile nodes)."""
     import jax.numpy as jnp
 
-    from xsdba_tpu.ops.pallas.merge_kernel import (
-        merged_window_rows,
-        merged_window_rows_shared,
-        merged_window_rows_xla,
-        sort_rows_alternating,
-    )
-
-    for (B, Dp, m, window, G, Ymax) in cases:
-        x = np.full((B, Dp, m), np.inf, dtype=np.float32)
-        x[..., :Ymax] = random.normal(0, 1, (B, Dp, Ymax))
-        xs = sort_rows_alternating(jnp.asarray(x), interpret=True)
-        if oracle == "xla":
-            want = np.asarray(merged_window_rows_xla(xs, window, G))
-        else:
-            want = np.asarray(merged_window_rows(xs, window, G, interpret=True))
-        got = np.asarray(merged_window_rows_shared(xs, window, G, interpret=True, ymax=Ymax))
-        w = min(want.shape[-1], got.shape[-1])
-        np.testing.assert_array_equal(
-            np.nan_to_num(want[..., :w], posinf=1e300),
-            np.nan_to_num(got[..., :w], posinf=1e300),
-        )
+    B, Gp, Lp, nq = 2, 3, 1100, 9
+    xsc, ysc, nv = _tables(random, (1, Gp), nq)
+    vj = jnp.asarray(random.normal(0, 3, (B, Gp, Lp)), jnp.float32)
+    want = np.asarray(_interp_unrolled(vj, xsc, ysc, nv, "linear", "constant"))
+    got = np.asarray(interp_rows(vj, xsc, ysc, nv, interpret=True))
+    assert got.shape == (B, Gp, Lp)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6, equal_nan=True)
 
 
-def test_shared_dyadic_merge_small(random):
-    """merged_window_rows_shared vs the XLA merge oracle, one small
-    odd-window case (fast lane; the full variant sweep against the per-group
-    Pallas cascade is in the slow lane).  The XLA oracle produces the same
-    sorted unions, so the comparison is value-identical; using it here
-    avoids a second interpret-mode kernel run (~30 s on 1 vCPU)."""
-    _check_shared_dyadic_merge(random, [(1, 64, 32, 9, 16, 10)], oracle="xla")
-
-
-@pytest.mark.slow
-def test_shared_dyadic_merge_matches_per_group(random):
-    """Bit-identical for odd/even windows, incl. parity-dependent top-level
-    runs (interpret-mode Pallas — minutes on CPU)."""
-    _check_shared_dyadic_merge(
-        random,
-        [
-            (2, 64, 32, 31, 20, 20),
-            (2, 96, 32, 24, 40, 10),
-            (2, 64, 32, 9, 30, 12),
-        ],
-    )
-
-
-@pytest.mark.skipif(not pallas_available(), reason="pallas unavailable")
-def test_fused_classes_fold_bit_exact(random):
-    """fuse_classes=True (one all-classes program) must be bit-identical to
-    the per-class launches — fast-lane small case."""
+@pytest.mark.gpu
+def test_interp_kernel_compiled_on_card(gpu, random):
+    """The kernel as compiled for the card, at the heavy cell's regular
+    layout width, against the XLA form."""
     import jax.numpy as jnp
 
-    from xsdba_tpu.ops.pallas.merge_kernel import (
-        merged_window_rows_shared,
-        sort_rows_alternating,
-    )
-
-    # smallest shape that still exercises >1 fold class and the class-index
-    # clamp (G=25, window=9 -> uneven class group counts); the production
-    # window and batch tiling are covered in the slow lane
-    B, Dp, m, window, G, Ymax = 1, 64, 32, 9, 25, 10
-    x = np.full((B, Dp, m), np.inf, dtype=np.float32)
-    x[..., :Ymax] = random.normal(0, 1, (B, Dp, Ymax))
-    xs = sort_rows_alternating(jnp.asarray(x), interpret=True)
-    a = np.asarray(merged_window_rows_shared(xs, window, G, interpret=True, ymax=Ymax))
-    b = np.asarray(
-        merged_window_rows_shared(xs, window, G, interpret=True, ymax=Ymax, fuse_classes=True)
-    )
-    np.testing.assert_array_equal(
-        np.nan_to_num(a, posinf=1e300), np.nan_to_num(b, posinf=1e300)
-    )
-
-
-@pytest.mark.slow
-def test_fused_classes_fold_bit_exact_production_window(random):
-    """fuse_classes parity at the production window (31) incl. uneven class
-    group counts (G=45: classes 13-15 have one fewer group -> clamped index)."""
-    import jax.numpy as jnp
-
-    from xsdba_tpu.ops.pallas.merge_kernel import (
-        merged_window_rows_shared,
-        sort_rows_alternating,
-    )
-
-    for (B, Dp, m, window, G, Ymax) in [(2, 128, 32, 31, 45, 16), (2, 128, 32, 15, 73, 12)]:
-        x = np.full((B, Dp, m), np.inf, dtype=np.float32)
-        x[..., :Ymax] = random.normal(0, 1, (B, Dp, Ymax))
-        xs = sort_rows_alternating(jnp.asarray(x), interpret=True)
-        a = np.asarray(merged_window_rows_shared(xs, window, G, interpret=True, ymax=Ymax))
-        b = np.asarray(
-            merged_window_rows_shared(xs, window, G, interpret=True, ymax=Ymax, fuse_classes=True)
-        )
-        np.testing.assert_array_equal(
-            np.nan_to_num(a, posinf=1e300), np.nan_to_num(b, posinf=1e300)
-        )
+    B, Gp, Lp, nq = 8, 365, 150, 50
+    xsc, ysc, nv = _tables(random, (B, Gp), nq)
+    vj = jnp.asarray(random.normal(0, 3, (B, Gp, Lp)), jnp.float32)
+    want = np.asarray(_interp_unrolled(vj, xsc, ysc, nv, "linear", "constant"))
+    got = np.asarray(interp_rows(vj, xsc, ysc, nv))
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6, equal_nan=True)

@@ -1,4 +1,4 @@
-"""Sharded-vs-single-device parity — the TPU analogue of the reference's
+"""Sharded-vs-single-device parity — the device analogue of the reference's
 dask-parity tests (SURVEY §4)."""
 
 import numpy as np
@@ -103,6 +103,19 @@ def test_graft_dryrun():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     g.dryrun_multichip(8)
+
+
+def test_graft_dryrun_explicit_devices():
+    """The site-mesh parts take the device list they run on (the four-card
+    smoke passes four GPUs): here four virtual CPU devices, passed in."""
+    import sys, os
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import __graft_entry__ as g
+
+    if len(jax.devices()) < 4:
+        pytest.skip("needs 4 virtual devices")
+    g.dryrun_multichip(4, devices=jax.devices()[:4])
 
 
 def test_graft_entry_compiles():

@@ -133,8 +133,8 @@ class TestHelpers:
 
 
 def test_profiling_helpers(tmp_path):
-    """trace() writes a TensorBoard-loadable capture; timed() syncs through a
-    scalar fetch and returns (best_seconds, output)."""
+    """trace() writes a TensorBoard-loadable capture; timed() syncs with
+    block_until_ready and returns (best_seconds, output)."""
     import os
 
     import jax

@@ -1,10 +1,10 @@
-"""xsdba_tpu — TPU-native statistical downscaling and bias adjustment.
+"""xsdba_tpu — statistical downscaling and bias adjustment in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 Ouranosinc/xsdba: train/adjust bias-adjustment schemes (quantile mapping and
 friends), time grouping lowered to static indexes, processing utilities, and
 diagnostics — all as jit-compiled operators over dense ``[site..., time]``
-device arrays, sharded over TPU meshes with ``jax.sharding``.
+device arrays, sharded over device meshes with ``jax.sharding``.
 """
 
 from .utils.calendar import TimeIndex, date_range

@@ -36,7 +36,7 @@ def _selftest() -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="xsdba-tpu", description="TPU-native statistical downscaling and bias adjustment."
+        prog="xsdba-tpu", description="Statistical downscaling and bias adjustment in JAX."
     )
     parser.add_argument("--version", action="store_true", help="Print the version and exit.")
     sub = parser.add_subparsers(dest="cmd")

@@ -1,16 +1,15 @@
 """Jitted compute cores for the adjustment schemes.
 
 Each core is a pure function over dense device arrays (time last) plus static
-group-index arrays — the TPU equivalent of the reference's decorated compute
-functions (``_adjustment.py``).  Cores are jitted once per (scheme, kind,
+group-index arrays — the device equivalent of the reference's decorated
+compute functions (``_adjustment.py``).  Cores are jitted once per (scheme, kind,
 interp, extrapolation, shapes) signature; everything inside fuses under XLA.
 
 Grouped lookups and broadcasts use *bracket partitions*
 (``GroupIndexes.bracket_partitions``): static -1-padded partitions of the
 time axis by bracketing padded group, so every device-side step is either a
 vectorized per-partition table evaluation or a gather from a long source
-axis — never an element-wise gather from a small table (pathologically slow
-on TPU, see docs/PERFORMANCE.md).
+axis — never an element-wise gather from a small table.
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ def broadcast_groups_core(f, brackets):
     bracket partitions (reference ``u.broadcast``, utils.py:180-248).
 
     The factor grid is tiled over the partition columns so the final step is
-    a (row, col) gather from a long source — cheap on TPU.
+    a (row, col) gather from a long source.
     """
     part0, g0, slot0, part1, g1, slot1, w = brackets
     f = jnp.asarray(f)
@@ -105,8 +104,8 @@ def qm_adjust_core(
 
     ``tables_compact``: the tables are quantile-trained (ascending, NaN rows
     whole) — skip the argsort NaN compaction (bit-identical there; the sort
-    + small-axis gathers it avoids ran per step inside fused programs,
-    docs/PERFORMANCE.md)."""
+    + small-axis gathers it avoids would run per step inside fused
+    programs)."""
     from ..ops.interp import interp1d_table
 
     if hist_q.shape[-2] == 1:
@@ -314,27 +313,27 @@ def _windowed_group_mean(x, plan):
 @partial(
     jax.jit,
     static_argnames=(
-        "half", "window", "ypad", "wpad", "dp", "use_kernel", "kind",
-        "counts", "q_static", "edge_tuple", "regular", "extract_mode", "fuse_classes",
+        "half", "window", "ypad", "wpad", "dp", "kind",
+        "counts", "q_static", "edge_tuple", "regular", "extract_mode",
     ),
 )
 def _eqm_train_windowed_fused(
     ref, hist, w1, eid, eg, q, *,
-    half, window, ypad, wpad, dp, use_kernel, kind, counts, q_static, edge_tuple,
-    regular=None, extract_mode="strip", fuse_classes=True,
+    half, window, ypad, wpad, dp, kind, counts, q_static, edge_tuple,
+    regular=None, extract_mode="strip",
 ):
-    """Fully-fused EQM windowed train: stack + grouped quantiles + factors in
-    ONE program (every intermediate eager op costs a dispatch round-trip over
-    a remote-device link)."""
+    """Fully-fused EQM windowed train on the merge engine: stack + grouped
+    quantiles + factors in ONE program (one dispatch, no eager
+    intermediates)."""
     from ..ops.quantile import _windowed_group_quantile_core
 
     both = jnp.stack([ref, hist], axis=0)
     q2 = _windowed_group_quantile_core.__wrapped__(
         both, w1, eid, eg, q,
         half=half, window=window, ypad=ypad, wpad=wpad, dp=dp,
-        use_kernel=use_kernel, interpret=False, alpha=1.0, beta=1.0,
+        alpha=1.0, beta=1.0,
         counts=counts, q_static=q_static, edge_tuple=edge_tuple, regular=regular,
-        extract_mode=extract_mode, fuse_classes=fuse_classes,
+        extract_mode=extract_mode,
     )
     # materialize the extracted tables once: the ref/hist slices below are
     # separate consumers and XLA otherwise re-runs the extraction gather per
@@ -343,30 +342,28 @@ def _eqm_train_windowed_fused(
     return get_correction(q2[1], q2[0], kind), q2[1]
 
 
-@partial(jax.jit, static_argnames=("G", "kind", "mode", "sort_impl"))
-def _eqm_train_windowed_sel(ref, hist, lab, q, *, G, kind, mode, sort_impl="lax"):
+@partial(jax.jit, static_argnames=("G", "kind", "mode"))
+def _eqm_train_windowed_sel(ref, hist, lab, q, *, G, kind, mode):
     """Fused EQM windowed train on the counting-selection backend: stack +
     selection quantiles + factors in ONE NaN-exact program — no speculative
     static/dynamic pair, no finiteness probe (ops/selquant.py)."""
     from ..ops.selquant import selection_windowed_quantile_core
 
     both = jnp.stack([ref, hist], axis=0)
-    q2 = selection_windowed_quantile_core(both, lab, q, G=G, mode=mode, sort_impl=sort_impl)
+    q2 = selection_windowed_quantile_core(both, lab, q, G=G, mode=mode)
     q2 = jax.lax.optimization_barrier(q2)  # one extraction, two consumers
     return get_correction(q2[1], q2[0], kind), q2[1]
 
 
 @partial(
     jax.jit,
-    static_argnames=("G", "kind", "mode", "sort_impl", "interp", "extrapolation"),
+    static_argnames=("G", "kind", "mode", "interp", "extrapolation"),
 )
 def _eqm_train_adjust_windowed_sel(
-    ref, hist, sim, lab, q, brackets, *, G, kind, mode, sort_impl, interp, extrapolation
+    ref, hist, sim, lab, q, brackets, *, G, kind, mode, interp, extrapolation
 ):
     """Selection-backend analogue of ``_eqm_train_adjust_windowed_fused``."""
-    af, hist_q = _eqm_train_windowed_sel.__wrapped__(
-        ref, hist, lab, q, G=G, kind=kind, mode=mode, sort_impl=sort_impl
-    )
+    af, hist_q = _eqm_train_windowed_sel.__wrapped__(ref, hist, lab, q, G=G, kind=kind, mode=mode)
     # materialize train tables before the adjust consumers (see
     # _eqm_train_adjust_windowed_fused; identity, bit-exact)
     af, hist_q = jax.lax.optimization_barrier((af, hist_q))
@@ -376,55 +373,51 @@ def _eqm_train_adjust_windowed_sel(
     return scen, af, hist_q
 
 
-def _sel_fused_ok(plan, ref, hist, quantiles) -> bool:
-    """Fused selection train(+adjust) applies: backend on, matching pair,
-    and the stage-3 block gather of the stacked batch fits (~8 GB f32)."""
-    from ..ops.selquant import selection_ok
+def _sel_fused_mode(plan, ref, hist, quantiles):
+    """The selection mode of the fused train(+adjust) program, or None when
+    it does not apply: the platform's engine is a selection engine, ref and
+    hist pair up, and one group chunk of the stage-3 block gather of the
+    stacked batch ([2B, g_chunk, K, 2*Wb] at the defaults 64 and 64) stays
+    within 2**31 elements."""
+    from ..ops.quantile import windowed_engine
 
-    if not (
-        selection_ok(plan, quantiles)
-        and ref.shape == hist.shape
-        and ref.dtype == hist.dtype
-    ):
-        return False
+    mode = windowed_engine(plan, quantiles)
+    if mode == "merge" or ref.shape != hist.shape or ref.dtype != hist.dtype:
+        return None
     B2 = 2 * int(np.prod(ref.shape[:-1], dtype=np.int64))
-    G = int(plan.fast_mask.shape[0])
+    Gc = min(64, int(plan.fast_mask.shape[0]))
     K = 2 * int(np.shape(quantiles)[0]) + 1
-    return B2 * G * K * 128 <= (1 << 31)
+    return mode if B2 * Gc * K * 128 <= (1 << 31) else None
 
 
 @partial(
     jax.jit,
     static_argnames=(
-        "half", "window", "ypad", "wpad", "dp", "use_kernel", "kind",
+        "half", "window", "ypad", "wpad", "dp", "kind",
         "counts", "q_static", "edge_tuple", "regular", "interp", "extrapolation",
-        "extract_mode", "fuse_classes",
+        "extract_mode",
     ),
 )
 def _eqm_train_adjust_windowed_fused(
     ref, hist, sim, w1, eid, eg, q, brackets, *,
-    half, window, ypad, wpad, dp, use_kernel, kind, counts, q_static, edge_tuple,
+    half, window, ypad, wpad, dp, kind, counts, q_static, edge_tuple,
     regular=None, interp="linear", extrapolation="constant",
-    extract_mode="strip", fuse_classes=True,
+    extract_mode="strip",
 ):
-    """Windowed EQM train + adjust in ONE program: stack + grouped quantiles +
-    factors + grouped table lookup + correction.  One dispatch per step —
-    every eager boundary between train and adjust costs a dispatch round-trip
-    over a remote-device link (docs/PERFORMANCE.md), and XLA can overlap the
-    adjust-side slab transpose with the train-side merge when both live in
-    the same program."""
+    """Windowed EQM train + adjust in ONE program on the merge engine: stack
+    + grouped quantiles + factors + grouped table lookup + correction.  One
+    dispatch per step, and XLA can overlap the adjust-side slab transpose
+    with the train-side merge when both live in the same program."""
     af, hist_q = _eqm_train_windowed_fused.__wrapped__(
         ref, hist, w1, eid, eg, q,
         half=half, window=window, ypad=ypad, wpad=wpad, dp=dp,
-        use_kernel=use_kernel, kind=kind, counts=counts, q_static=q_static,
-        edge_tuple=edge_tuple, regular=regular,
-        extract_mode=extract_mode, fuse_classes=fuse_classes,
+        kind=kind, counts=counts, q_static=q_static,
+        edge_tuple=edge_tuple, regular=regular, extract_mode=extract_mode,
     )
     # Materialize the train tables before the adjust side consumes them:
-    # without the barrier XLA fuses the extraction gather into the adjust's
-    # per-bracket consumers and recomputes it per partition — measured
-    # +96 ms/step at the heavy shape (composed_stages: fused adjust side
-    # 103 ms vs 6.9 ms isolated).  The barrier is identity (bit-exact).
+    # without the barrier XLA may fuse the extraction gather into the
+    # adjust's per-bracket consumers and recompute it per partition.  The
+    # barrier is identity (bit-exact).
     af, hist_q = jax.lax.optimization_barrier((af, hist_q))
     scen = qm_adjust_core.__wrapped__(
         sim, hist_q, af, brackets, kind=kind, interp=interp, extrapolation=extrapolation,
@@ -449,7 +442,7 @@ def eqm_train_adjust_windowed(
     static fast path (callers that construct finite data, e.g. bench)."""
     from ..ops.quantile import (
         _PLAN_FINITE_HINT,
-        _merge_backend_default,
+        _extract_mode,
         _pair_finite_probe,
         _plan_device_arrays,
         speculative_static_dispatch,
@@ -459,14 +452,14 @@ def eqm_train_adjust_windowed(
     hist = jnp.asarray(hist)
     sim = jnp.asarray(sim)
 
-    if _sel_fused_ok(plan, ref, hist, quantiles):
-        from ..ops.selquant import _plan_label_device, default_mode, default_sort_impl
+    sel_mode = _sel_fused_mode(plan, ref, hist, quantiles)
+    if sel_mode is not None:
+        from ..ops.selquant import _plan_label_device
 
         return _eqm_train_adjust_windowed_sel(
             ref, hist, sim, _plan_label_device(plan),
             jnp.asarray(quantiles, dtype=ref.dtype), brackets,
-            G=int(plan.fast_mask.shape[0]), kind=kind, mode=default_mode(),
-            sort_impl=default_sort_impl(ref.dtype),
+            G=int(plan.fast_mask.shape[0]), kind=kind, mode=sel_mode,
             interp=interp, extrapolation=extrapolation,
         )
 
@@ -487,11 +480,8 @@ def eqm_train_adjust_windowed(
         return scen, af, hist_q
 
     w1, eid, eg = _plan_device_arrays(plan)
-    use_kernel = _merge_backend_default(ref.dtype)
     qdev = jnp.asarray(quantiles, dtype=ref.dtype)
-    from ..ops.quantile import _engine_statics
-
-    extract_mode, fuse_classes = _engine_statics()
+    extract_mode = _extract_mode()
 
     def call(static: bool):
         if static:
@@ -504,10 +494,10 @@ def eqm_train_adjust_windowed(
         return _eqm_train_adjust_windowed_fused(
             ref, hist, sim, w1, eid, eg, qdev, brackets,
             half=plan.half, window=plan.window, ypad=plan.ypad, wpad=plan.wpad,
-            dp=plan.dp, use_kernel=bool(use_kernel), kind=kind,
+            dp=plan.dp, kind=kind,
             counts=counts, q_static=q_static, edge_tuple=edge_tuple,
             regular=plan.regular_period, interp=interp, extrapolation=extrapolation,
-            extract_mode=extract_mode, fuse_classes=fuse_classes,
+            extract_mode=extract_mode,
         )
 
     if assume_finite is True:
@@ -531,7 +521,7 @@ def eqm_train_windowed(ref, hist, plan, quantiles, *, kind: str):
     factors); the finiteness probe is dispatched alongside it (speculative,
     as in ``windowed_group_quantile``)."""
     from ..ops.quantile import (
-        _merge_backend_default,
+        _extract_mode,
         _pair_finite_probe,
         _plan_device_arrays,
         speculative_static_dispatch,
@@ -541,14 +531,14 @@ def eqm_train_windowed(ref, hist, plan, quantiles, *, kind: str):
     ref = jnp.asarray(ref)
     hist = jnp.asarray(hist)
 
-    if _sel_fused_ok(plan, ref, hist, quantiles):
-        from ..ops.selquant import _plan_label_device, default_mode, default_sort_impl
+    sel_mode = _sel_fused_mode(plan, ref, hist, quantiles)
+    if sel_mode is not None:
+        from ..ops.selquant import _plan_label_device
 
         return _eqm_train_windowed_sel(
             ref, hist, _plan_label_device(plan),
             jnp.asarray(quantiles, dtype=ref.dtype),
-            G=int(plan.fast_mask.shape[0]), kind=kind, mode=default_mode(),
-            sort_impl=default_sort_impl(ref.dtype),
+            G=int(plan.fast_mask.shape[0]), kind=kind, mode=sel_mode,
         )
 
     pairable = (
@@ -572,11 +562,8 @@ def eqm_train_windowed(ref, hist, plan, quantiles, *, kind: str):
         return get_correction(hist_q, ref_q, kind), hist_q
 
     w1, eid, eg = _plan_device_arrays(plan)
-    use_kernel = _merge_backend_default(ref.dtype)
     qdev = jnp.asarray(quantiles, dtype=ref.dtype)
-    from ..ops.quantile import _engine_statics
-
-    extract_mode, fuse_classes = _engine_statics()
+    extract_mode = _extract_mode()
 
     def call(static: bool):
         if static:
@@ -589,10 +576,9 @@ def eqm_train_windowed(ref, hist, plan, quantiles, *, kind: str):
         return _eqm_train_windowed_fused(
             ref, hist, w1, eid, eg, qdev,
             half=plan.half, window=plan.window, ypad=plan.ypad, wpad=plan.wpad,
-            dp=plan.dp, use_kernel=bool(use_kernel), kind=kind,
+            dp=plan.dp, kind=kind,
             counts=counts, q_static=q_static, edge_tuple=edge_tuple,
-            regular=plan.regular_period,
-            extract_mode=extract_mode, fuse_classes=fuse_classes,
+            regular=plan.regular_period, extract_mode=extract_mode,
         )
 
     if isinstance(ref, jax.core.Tracer) or isinstance(hist, jax.core.Tracer):

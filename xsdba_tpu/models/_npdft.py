@@ -1,9 +1,9 @@
 """N-pdf transform cores (the MBCn engine).
 
-TPU re-design of reference ``_adjustment.py:289-465``: the per-site numpy
-loop over rotations becomes a ``lax.scan`` whose body is fully batched —
-rotation matmuls on the MXU, batched nan-quantiles, ranks and table lookups
-on the VPU.  Composed rotation increments (``rot_i @ rot_{i-1}.T``,
+Device re-design of reference ``_adjustment.py:289-465``: the per-site
+numpy loop over rotations becomes a ``lax.scan`` whose body is fully
+batched — rotation matmuls, batched nan-quantiles, ranks and table
+lookups.  Composed rotation increments (``rot_i @ rot_{i-1}.T``,
 reference ``_adjustment.py:311``) are precomputed so the scan carries the
 *rotated* state instead of re-rotating from scratch.
 """
@@ -20,6 +20,10 @@ from ..ops.interp import interp1d_table
 from ..ops.quantile import _quantile_on_sorted, nan_quantile
 from ..ops.rank import rank_pct_rescaled, rank_pct_rescaled_with_sorted
 
+# rotations owe float64-reference parity: a default-precision f32 matmul
+# may run in TF32 on GPUs
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 __all__ = ["npdft_adjust_core", "npdft_train_core", "standardize_lastaxis"]
 
 
@@ -34,7 +38,7 @@ def standardize_lastaxis(x):
 def _composed_rots(rots):
     """rot increments: rots[0], rots[i] @ rots[i-1].T for i>0."""
     head = rots[:1]
-    tail = jnp.einsum("iab,ibc->iac", rots[1:], jnp.swapaxes(rots[:-1], -1, -2))
+    tail = jnp.einsum("iab,ibc->iac", rots[1:], jnp.swapaxes(rots[:-1], -1, -2), precision=_HIGHEST)
     return jnp.concatenate([head, tail], axis=0)
 
 
@@ -55,8 +59,8 @@ def npdft_train_core(ref, hist, rots, quantiles, *, interp: str, extrap: str, n_
 
     def body(carry, rot):
         r, h = carry
-        r = jnp.einsum("ij,...jl->...il", rot, r)
-        h = jnp.einsum("ij,...jl->...il", rot, h)
+        r = jnp.einsum("ij,...jl->...il", rot, r, precision=_HIGHEST)
+        h = jnp.einsum("ij,...jl->...il", rot, h, precision=_HIGHEST)
         ref_q = nan_quantile(r, quantiles, axis=-1)
         # hist side needs BOTH quantiles and ranks of the same array — one
         # shared value sort serves both (the sort is the iteration's
@@ -127,9 +131,9 @@ def npdf_transform_core(
 
     def body(carry, rot):
         h, s = carry
-        refp = jnp.einsum("ij,...jl->...il", rot, ref)
-        hp = jnp.einsum("ij,...jl->...il", rot, h)
-        sp = jnp.einsum("ij,...jl->...il", rot, s)
+        refp = jnp.einsum("ij,...jl->...il", rot, ref, precision=_HIGHEST)
+        hp = jnp.einsum("ij,...jl->...il", rot, h, precision=_HIGHEST)
+        sp = jnp.einsum("ij,...jl->...il", rot, s, precision=_HIGHEST)
         ref_q = nan_quantile(gather_groups(refp, gather_h), quantiles, axis=-1)
         if base == "qdm":
             # the hist side needs both its grouped ranks and its grouped
@@ -155,8 +159,8 @@ def npdf_transform_core(
             scensp = sp + interp_on_quantiles_grouped(
                 sp, frac_s, hist_q, af, pos_s, interp, extrap
             )
-        h = jnp.einsum("ji,...jl->...il", rot, scenhp)
-        s = jnp.einsum("ji,...jl->...il", rot, scensp)
+        h = jnp.einsum("ji,...jl->...il", rot, scenhp, precision=_HIGHEST)
+        s = jnp.einsum("ji,...jl->...il", rot, scensp, precision=_HIGHEST)
         if n_escore >= 0:
             hn = (h - mu) / sd
             esc = escore(ref_n, hn[..., ::stride])
@@ -177,7 +181,7 @@ def npdft_adjust_core(sim, af_q, rots, quantiles, *, interp: str, extrap: str):
 
     def body(s, inputs):
         rot, afq = inputs
-        s = jnp.einsum("ij,...jl->...il", rot, s)
+        s = jnp.einsum("ij,...jl->...il", rot, s, precision=_HIGHEST)
         rnk = rank_pct_rescaled(s, axis=-1)
         qtab = jnp.broadcast_to(quantiles, afq.shape)
         af = interp1d_table(rnk, qtab, afq, interp, extrap)
@@ -185,4 +189,4 @@ def npdft_adjust_core(sim, af_q, rots, quantiles, *, interp: str, extrap: str):
         return s, None
 
     sim, _ = jax.lax.scan(body, sim, (inc, af_q_it))
-    return jnp.einsum("ji,...jl->...il", rots[-1], sim)
+    return jnp.einsum("ji,...jl->...il", rots[-1], sim, precision=_HIGHEST)

@@ -1,6 +1,6 @@
 """Empirical Quantile Mapping and Quantile Delta Mapping.
 
-TPU re-design of reference ``adjustment.py:414-528`` (EQM) and ``:674-742``
+Device re-design of reference ``adjustment.py:414-528`` (EQM) and ``:674-742``
 (QDM): train is one fused jitted gather->sort->lerp over static group indexes;
 adjust is one fused table lookup + correction.
 """
@@ -80,9 +80,9 @@ class EmpiricalQuantileMapping(TrainAdjust):
         hista = _apply_jitter(hista, hist, jitter_under_thresh_value, jitter_over_thresh_value, jitter_over_thresh_upper_bnd)
         if adapt_freq_thresh is None:
             if gi_t.merge_plan is not None:
-                # shared-sort merge path for windowed doy/5D groupings: sorts
-                # each window-1 list once instead of the window-fold
-                # amplified gather (see ops/pallas/merge_kernel.py)
+                # windowed doy/5D groupings: the platform's windowed engine
+                # (ops.quantile.windowed_engine) instead of the window-fold
+                # amplified gather
                 af, hist_q = _algos.eqm_train_windowed(refa, hista, gi_t.merge_plan, jnp.asarray(quantiles), kind=kind)
             else:
                 # memory-bounded path: no full [..., G, L] gather materialized
@@ -286,7 +286,7 @@ def _preprocess(
 def _use_reference_interp(mode: str, gi) -> bool:
     """True when the exact reference-parity grouped lookup should run.
 
-    ``mode="blend"`` is the TPU path (separable cyclic blend);
+    ``mode="blend"`` is the device path (separable cyclic blend);
     ``mode="reference"`` evaluates the reference's scipy-griddata
     triangulation on host (utils.py:380-400) — parity runs, not perf runs.
     The ungrouped 1-D path is already bit-faithful, so "reference" only

@@ -1,7 +1,7 @@
 """Scaling and LOCI adjustments.
 
 Reference: ``adjustment.py:933-1050`` (classes), ``_adjustment.py:889-974``
-(compute).  Both are group-mean methods — one fused segment reduction on TPU.
+(compute).  Both are group-mean methods — one fused segment reduction on device.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Replaces xarray ``polyfit``/``polyval`` (reference ``detrending.py:196-208``)
 with masked normal equations solved batched on device: one small
-``[deg+1, deg+1]`` solve per (batch, group) — MXU-friendly, no per-site loop.
+``[deg+1, deg+1]`` solve per (batch, group) — batched, no per-site loop.
 
 The x axis is affinely rescaled to [-1, 1] per group before fitting; the
 evaluated trend is mathematically invariant under this rescaling and far

@@ -1,8 +1,8 @@
-"""Székely–Rizzo energy distance, MXU-style.
+"""Székely–Rizzo energy distance as matmuls.
 
 Replaces the numba O(K·N·M) pairwise loops (reference ``nbutils.py:274-372``)
 with the ||x||² + ||y||² − 2xᵀy matmul factorization — the distance matrix
-rides the MXU.  NaN points (any variable NaN) are masked out with weights
+is one matmul.  NaN points (any variable NaN) are masked out with weights
 instead of compressed (static shapes), matching ``remove_NaNs`` semantics.
 """
 
@@ -20,7 +20,7 @@ def _masked_pairwise_mean(X, Y, mx, my):
     Y0 = jnp.where(my[..., None, :], Y, 0.0)
     x2 = jnp.sum(X0 * X0, axis=-2)                         # [..., N]
     y2 = jnp.sum(Y0 * Y0, axis=-2)                         # [..., M]
-    xy = jnp.einsum("...kn,...km->...nm", X0, Y0)          # MXU
+    xy = jnp.einsum("...kn,...km->...nm", X0, Y0)
     d2 = x2[..., :, None] + y2[..., None, :] - 2 * xy
     d = jnp.sqrt(jnp.clip(d2, 0, None))
     w = mx[..., :, None] * my[..., None, :]

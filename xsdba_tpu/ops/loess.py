@@ -1,4 +1,4 @@
-"""Robust LOESS smoothing (Cleveland 1979), batched for TPU.
+"""Robust LOESS smoothing (Cleveland 1979), batched on device.
 
 Replaces the reference's numba kernel (``loess.py:16-179``): the per-point
 Python loop becomes one [n, R] sliding-window gather + batched weighted

@@ -4,7 +4,7 @@ Histogramming and plan construction for OTC/dOTC.  Two solvers:
 
 - ``emd``: the in-tree C++ exact solver (``xsdba_tpu.native``), matching the
   reference's POT network simplex results;
-- ``sinkhorn``: entropic OT in JAX — static shapes, runs on TPU, converges to
+- ``sinkhorn``: entropic OT in JAX — static shapes, runs on device, converges to
   the exact plan as ``reg -> 0`` (documented deviation when used).
 """
 

@@ -1,3 +1,6 @@
-"""Pallas TPU kernels for hot ops with a fallback XLA path."""
+"""Hand-written GPU kernels (Pallas, Triton route), each kept only while it
+beats the plain XLA form end to end on the card (PERF.md)."""
 
-from .interp_kernel import interp_table_pallas, pallas_available
+from .interp import interp_rows
+
+__all__ = ["interp_rows"]

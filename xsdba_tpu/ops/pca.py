@@ -106,7 +106,7 @@ def first_eof_pattern(anom):
 
     The eigenproblem is solved on the smaller Gram side: time-by-time when
     ``T <= S`` (the leading left vector is mapped back through ``Aᵀu``),
-    site-by-site otherwise — either way one MXU matmul plus a small
+    site-by-site otherwise — either way one matmul plus a small
     batched ``eigh``.  Original implementation: the reference removed its
     ``first_eof`` (properties.py:1540-1554) over an eofs-package licensing
     issue, so there is no behavior to match.

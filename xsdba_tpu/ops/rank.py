@@ -1,4 +1,4 @@
-"""Average ranks with NaN handling, TPU-style.
+"""Average ranks with NaN handling, by sorting.
 
 Replicates xarray/bottleneck ``nanrankdata`` semantics used by the reference
 (``utils.py:575-646``): equal values get the average of their would-be ranks,
@@ -6,11 +6,10 @@ ranks start at 1, NaNs stay NaN; ``pct`` divides by the valid count.  The
 reference then rescales pct ranks to span [0, 1] exactly
 (``rnk = mx*(rnk-mn)/(mx-mn)``, ``utils.py:631-634``), which we reproduce.
 
-Implementation: one argsort + cumulative-max run labeling.  Equal values form
+Implementation: one sort + cumulative-max run labeling.  Equal values form
 contiguous runs in the sorted order, and the average of consecutive integer
 positions a..b is just (a+b)/2 — so tie-averaged ranks come from two
-cummax scans over the sorted row, with no searchsorted (whose scan lowering
-is pathologically slow on TPU: 12 s vs 0.1 s at production size).
+cummax scans over the sorted row, with no searchsorted.
 """
 
 from __future__ import annotations
@@ -25,12 +24,11 @@ def _rank_core(x):
     """Shared internals on a last-axis layout: returns
     (avg ranks [NaN where x is NaN], sorted values with NaNs last, NaN mask).
 
-    Two multi-operand ``lax.sort`` calls: the first sorts (value, position),
-    the second sorts (position, rank) to scatter ranks back — no gathers at
-    all (element-wise gathers are ~100x slower than sorts on TPU v5e).  The
-    first sort's output IS the value-sorted row, so callers needing both
-    ranks and quantiles of the same array get the sort for free
-    (``rank_pct_rescaled_with_sorted``).
+    One multi-operand ``lax.sort`` of (value, NaN flag, position), then a
+    scatter of the run-averaged ranks back to the original positions (a
+    pure permutation, so exact).  The sort's output IS the value-sorted
+    row, so callers needing both ranks and quantiles of the same array get
+    the sort for free (``rank_pct_rescaled_with_sorted``).
     """
     n = x.shape[-1]
     nan = jnp.isnan(x)
@@ -49,7 +47,12 @@ def _rank_core(x):
     nxt = jnp.concatenate([starts[..., 1:], jnp.ones_like(starts[..., :1])], axis=-1)
     b = -jax.lax.cummax(-jnp.where(nxt, pos, n)[..., ::-1], axis=x.ndim - 1)[..., ::-1]
     avg_sorted = (a + b).astype(x.dtype) / 2 + 1
-    _, rnk = jax.lax.sort((perm, avg_sorted), dimension=x.ndim - 1, num_keys=1)
+    # a scatter, not a second sort keyed by ``perm``: XLA's GPU compiler
+    # rewrites that sort into a scatter itself and, in site-partitioned
+    # programs, emits one that fails HLO verification
+    rnk = jnp.put_along_axis(
+        jnp.zeros_like(avg_sorted), perm, avg_sorted, axis=x.ndim - 1, inplace=False
+    )
     rnk = jnp.where(nan, jnp.nan, rnk)
     # restore NaNs in the sorted row (they sorted as +inf behind real +infs)
     sorted_x = jnp.where(snan == 1, jnp.nan, s)

@@ -1,6 +1,6 @@
 """Group-wise apply primitives over static gather/scatter indexes.
 
-The TPU replacement for ``Grouper.apply`` (reference ``base.py:347-457``):
+The device replacement for ``Grouper.apply`` (reference ``base.py:347-457``):
 instead of a runtime groupby, values are gathered into a dense ``[G, L]``
 matrix (NaN-padded via the -1 indexes), reduced or transformed along ``L``,
 and — for transforms — scattered back to the time axis through

@@ -4,7 +4,7 @@ The windowed grouped type-7 quantile (reference ``base.py:261-265`` rolling
 construct + ``nbutils.py:113-148`` quantile) needs only ~2*nq+1 ORDER
 STATISTICS per (site, group) — not the fully sorted ``window*years``-element
 row the merge cascade produces.  This module computes those order statistics
-exactly by counting, in three TPU-friendly stages:
+exactly by counting, in three stages:
 
 1. ONE full sort of each site's series, carrying a packed per-element
    group-interval label through the sort (``lax.sort`` payload — no gathers).
@@ -14,21 +14,18 @@ exactly by counting, in three TPU-friendly stages:
    see :func:`interval_membership`).
 2. Per-block windowed member counts: the sorted order is cut into blocks of
    ``Wb`` elements; each block's per-group member count is an elementwise
-   interval test reduced over the block (VPU work, no gathers), and a
+   interval test reduced over the block (elementwise work, no gathers), and a
    cumulative sum over blocks yields the exact valid count — and so the
    needed type-7 ranks — per (site, group).
-3. DENSE EMISSION: the sorted stream is re-scanned chunk by chunk; every
-   element computes its own member-rank per group and tests it against the
-   ≤``slots`` needed ranks that fall inside its chunk (located by pure
-   comparisons against chunk-boundary counts).  Each needed rank is hit by
-   exactly one element globally, so per-chunk value*hit accumulators
-   assemble into the full table with a small one-hot select.  No random
-   access anywhere: v5e measures row-gathers at ~147M rows/s and sorts at
-   ~2 ns/element, so per-query gathers or sort-based searches would
-   dominate the step (docs/PERFORMANCE.md); dense interval tests are the
-   only primitive this chip serves at full rate.  The rare slot-overflow
-   case (extreme value concentration) reroutes in-program to the exact
-   full-width window via ``lax.cond``.
+3. Extraction, in one of two exact, bit-identical forms: ``"gather"``
+   locates each needed rank's block by a scan over the block counts,
+   gathers that one block and picks the member in it; ``"emit"`` (DENSE
+   EMISSION) re-scans the sorted stream chunk by chunk, every element
+   computing its own member-rank per group and testing it against the
+   ≤``slots`` needed ranks that fall inside its chunk, with no random
+   access at all.  The rare slot-overflow case of the emission (extreme
+   value concentration) reroutes in-program to the exact full-width
+   window via ``lax.cond``.
 
 Stage 2's counts are exact for NaN data too (NaNs sort last and are excluded
 from membership), so the ranks are computed dynamically from the true valid
@@ -57,38 +54,26 @@ __all__ = [
 
 
 def selection_ok(plan, quantiles) -> bool:
-    """True when the counting-selection backend can serve this call.
-
-    Controlled by two runtime options (``set_options`` or the
-    ``XSDBA_SELECTION_BACKEND`` / ``XSDBA_SELECTION_ON_TPU`` env vars):
-    ``selection_backend=False`` restores the merge cascade everywhere (A/B
-    escape hatch; scripts/probe_selquant.py).  The TPU default keeps the
-    merge cascade: every selection variant measured above the merge step on
-    v5e — row-gathers are rate-limited at ~147M rows/s (gather engine
-    ≥ 134 ms of gathers alone), long-row sorts floor at ~55 ms even
-    hand-written (ops/pallas/sort_kernel.py), and the dense emission's XLA
-    lowering materializes its hit transients through HBM (0.9-4.4 s/step
-    measured).  Full story + numbers: docs/PERFORMANCE.md "Selection-class
-    roofline".  CPU (and any non-TPU backend) takes selection: measured 28x
-    the merge path there, NaN-exact in one program.
-    """
+    """True when the counting-selection backend can serve this call: the
+    plan has interval membership, the quantiles are one vector, and the
+    ``selection_backend`` option (``XSDBA_SELECTION_BACKEND`` env var) has
+    not turned it off."""
     from ..utils.options import get_option
 
-    if not (
+    return bool(
         get_option("selection_backend")
         and plan is not None
         and plan.sel_labels is not None
         and np.ndim(quantiles) == 1
-    ):
-        return False
-    return get_option("selection_on_tpu") or jax.default_backend() == "cpu"
+    )
+
 
 # labels are packed as start*_PACK + length; _PACK must exceed any group count
 _PACK = 1024
 # bias added before bitcasting packed int32 labels to f32 for the block
-# gather: raw packed values (< 2**19) are DENORMAL f32 bit patterns, and TPU
-# vector copies flush denormals to zero — biased into [2**23, 2**24) every
-# label is a normal float and survives the ride bit-exactly
+# gather: raw packed values (< 2**19) are DENORMAL f32 bit patterns, which a
+# copy that flushes denormals to zero would lose — biased into [2**23, 2**24)
+# every label is a normal float and survives the ride bit-exactly
 _LABEL_BIAS = 1 << 23
 
 
@@ -144,8 +129,7 @@ def selection_windowed_quantile_core(
     nb_chunk: int = 128,
     slots: int = 32,
     g_chunk: int = 64,
-    mode: str = "emit",
-    sort_impl: str = "lax",
+    mode: str = "gather",
     alpha: float = 1.0,
     beta: float = 1.0,
 ):
@@ -153,21 +137,8 @@ def selection_windowed_quantile_core(
     ``start*_PACK + length`` int32, ``quantiles`` [nq].  Returns [..., G, nq].
 
     ``mode`` picks the extraction engine over the shared sort + counting
-    stages: ``"emit"`` (dense emission, below — the TPU form: v5e serves
-    dense interval tests at full VPU rate but random row-gathers at only
-    ~147M rows/s) or ``"gather"`` (per-query block row-gather + in-block
-    pick — the CPU form: XLA CPU gathers are cheap and the dense emission's
-    ~1e11 slot-tests are not).  Both are exact and bit-identical.
-
-    ``sort_impl`` picks the stage-1 sort: ``"lax"`` (``lax.sort`` with the
-    label payload), ``"pallas"`` (the in-VMEM bitonic network of
-    ``ops/pallas/sort_kernel.py`` — measured 14% under ``lax.sort`` at the
-    heavy shape on v5e), or ``"xla"`` (the same network lowered through
-    plain XLA — CPU-testable).  The network paths substitute NaN keys with
-    (+inf, length-0 label): the tie ORDER among +inf keys may then differ
-    from ``lax.sort``'s, but membership, counts and every selected value
-    depend only on the (value, label) multiset, so outputs are
-    bit-identical (pinned by ``tests/test_selquant.py``).
+    stages: ``"gather"`` (per-query block row-gather + in-block pick) or
+    ``"emit"`` (dense emission, below).  Both are exact and bit-identical.
 
     ``Wb`` is the sorted-order block width, ``nb_chunk`` the number of blocks
     each membership/emission chunk processes, ``slots`` the per-chunk
@@ -194,23 +165,7 @@ def selection_windowed_quantile_core(
 
     # --- stage 1: one sort per site, labels ride as payload (NaNs last) ---
     lab = jnp.broadcast_to(jnp.asarray(labels, jnp.int32)[None, :], (B, T))
-    if sort_impl == "lax":
-        svals, slab = jax.lax.sort((xb, lab), num_keys=1)
-    else:
-        # bitonic network path: min/max comparators cannot carry NaN keys —
-        # substitute (+inf, length-0 label); the poisoned label keeps the
-        # element out of every membership count, exactly like NaN under
-        # lax.sort (the network's output length is padded to a pow2 multiple
-        # of 128 lane-rows; the (+inf, 0) pads are likewise never members)
-        from .pallas.sort_kernel import sort_rows_with_payload
-
-        bad = jnp.isnan(xb)
-        svals, slab = sort_rows_with_payload(
-            jnp.where(bad, jnp.inf, xb),
-            jnp.where(bad, 0, lab),
-            use_kernel=(sort_impl == "pallas"),
-        )
-        T = svals.shape[-1]
+    svals, slab = jax.lax.sort((xb, lab), num_keys=1)
 
     nbo = -(-T // (Wb * nb_chunk))
     nb = nbo * nb_chunk
@@ -274,8 +229,7 @@ def selection_windowed_quantile_core(
 
         # --- stage 3: gather ONE block per query, pick the m-th member ---
         # chunked over groups: the full gather output [B, G, K, 2*Wb] is
-        # gigabytes at production batch; per-chunk it is bounded and at the
-        # default Wb=64 the combined row is exactly one 128-lane vreg row
+        # gigabytes at production batch; per-chunk it is bounded
         if svals.dtype == jnp.float32:
             # labels ride the value gather bitcast to f32 (one row-gather of
             # 2*Wb instead of two of Wb); the bias keeps every pattern normal
@@ -336,10 +290,7 @@ def selection_windowed_quantile_core(
     if mode != "emit":
         raise ValueError(f"Unknown selection mode {mode!r} (emit, gather).")
 
-    # --- stage 2b+3: DENSE EMISSION (no search, no gather).  v5e measures
-    # random row-gathers at ~147M rows/s and big sorts at ~2 ns/element
-    # (docs/PERFORMANCE.md), so per-query block gathers and sort-based rank
-    # searches are both off the table at ~1.9e7 queries.  Instead the sorted
+    # --- stage 2b+3: DENSE EMISSION (no search, no gather).  The sorted
     # stream is re-scanned once, densely: every element computes its own
     # member-rank per group (block-cumulative count + in-chunk cumsum) and
     # tests it against the needed ranks that fall inside its chunk — a
@@ -447,43 +398,13 @@ def selection_windowed_quantile_core(
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "G", "Wb", "nb_chunk", "slots", "g_chunk", "mode", "sort_impl", "alpha", "beta"
-    ),
+    static_argnames=("G", "Wb", "nb_chunk", "slots", "g_chunk", "mode", "alpha", "beta"),
 )
-def _selection_core_jit(
-    x, labels, quantiles, *, G, Wb, nb_chunk, slots, g_chunk, mode, sort_impl, alpha, beta
-):
+def _selection_core_jit(x, labels, quantiles, *, G, Wb, nb_chunk, slots, g_chunk, mode, alpha, beta):
     return selection_windowed_quantile_core(
         x, labels, quantiles, G=G, Wb=Wb, nb_chunk=nb_chunk, slots=slots,
-        g_chunk=g_chunk, mode=mode, sort_impl=sort_impl, alpha=alpha, beta=beta,
+        g_chunk=g_chunk, mode=mode, alpha=alpha, beta=beta,
     )
-
-
-def default_mode() -> str:
-    """Extraction engine from the ``selection_mode`` option: ``"auto"``
-    resolves per backend — gathers are cheap on CPU, dense emission is the
-    only full-rate primitive on TPU (module doc)."""
-    from ..utils.options import get_option
-
-    mode = get_option("selection_mode")
-    if mode != "auto":
-        return mode
-    return "gather" if jax.default_backend() == "cpu" else "emit"
-
-
-def default_sort_impl(dtype) -> str:
-    """Stage-1 sort from the ``selection_sort`` option: ``"auto"`` takes the
-    Pallas bitonic network on TPU f32 (measured 14% under ``lax.sort`` at
-    [512, 54750] on v5e — docs/PERFORMANCE.md) and ``lax.sort`` elsewhere."""
-    from ..utils.options import get_option
-
-    impl = get_option("selection_sort")
-    if impl != "auto":
-        return impl
-    if jax.default_backend() == "tpu" and jnp.dtype(dtype) == jnp.float32:
-        return "pallas"
-    return "lax"
 
 
 def pack_labels(start, length) -> np.ndarray:
@@ -504,13 +425,14 @@ def selection_windowed_quantile(
     slots: int = 32,
     g_chunk: int = 64,
     mode: str | None = None,
-    sort_impl: str | None = None,
 ):
     """Windowed grouped quantile via counting selection (see module doc).
 
     ``plan`` is a :class:`~xsdba_tpu.utils.grouper.WindowMergePlan` whose
     ``sel_labels`` is not None.  Bit-identical to the jitted re-sort oracle
     (``grouped_nan_quantile`` of the plan's gather matrix under ``jax.jit``).
+    ``mode`` (``"gather"`` / ``"emit"``) defaults to the platform's engine
+    when that is a selection engine, else ``"gather"``.
     """
     if plan.sel_labels is None:
         raise ValueError("plan has no interval membership; use the merge path")
@@ -529,9 +451,11 @@ def selection_windowed_quantile(
         B *= d
 
     if mode is None:
-        mode = default_mode()
-    if sort_impl is None:
-        sort_impl = default_sort_impl(x.dtype)
+        from .quantile import windowed_engine
+
+        mode = windowed_engine(plan, quantiles)
+        if mode == "merge":
+            mode = "gather"
 
     def run(xc):
         return _selection_core_jit(
@@ -544,7 +468,6 @@ def selection_windowed_quantile(
             slots=slots,
             g_chunk=g_chunk,
             mode=mode,
-            sort_impl=sort_impl,
             alpha=alpha,
             beta=beta,
         )

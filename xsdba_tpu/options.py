@@ -4,11 +4,10 @@ from .utils.options import (  # noqa: F401
     AS_DATASET,
     EXTRA_OUTPUT,
     EXTRACT_FLAT,
-    FUSE_FOLD_CLASSES,
+    EXTRACT_MODE,
     OPTIONS,
     SELECTION_BACKEND,
     SELECTION_MODE,
-    SELECTION_ON_TPU,
     get_option,
     set_options,
 )

@@ -6,7 +6,7 @@ parallel over sites, with time kept whole per site (the reference enforces a
 single chunk along the adjusted dim, ``adjustment.py:102-103`` — the same
 invariant as "time fits on-device").
 
-TPU-native equivalent: a 1-D (or 2-D site×var) ``jax.sharding.Mesh``; inputs
+Device equivalent: a 1-D (or 2-D site×var) ``jax.sharding.Mesh``; inputs
 carry ``NamedSharding`` partitions over the site axis and the jitted cores are
 compiled under the mesh — XLA partitions every op site-wise with zero
 collectives on the adjustment path.  Collectives only appear in spatial
@@ -18,6 +18,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+from functools import partial
+
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 __all__ = [
@@ -30,6 +33,10 @@ __all__ = [
     "VAR_AXIS",
 ]
 
+# f32 products owe reference parity: a default-precision f32 matmul may run
+# in TF32 on GPUs
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 SITE_AXIS = "site"
 VAR_AXIS = "var"
 
@@ -39,7 +46,9 @@ def site_mesh(devices=None, n_var: int = 1) -> Mesh:
 
     ``n_var > 1`` reserves a second axis for multivariate methods whose
     rotation matmuls contract over variables (MBCn/NpdfTransform) — those
-    ride ICI with psum; everything else is pure data parallelism.
+    reduce with a psum; everything else is pure data parallelism.  The mesh
+    shape follows the algorithm alone: the cards of a host reach each other
+    at the same rate.
     """
     devices = np.asarray(devices if devices is not None else jax.devices())
     if n_var > 1:
@@ -69,18 +78,13 @@ def sharded_pairwise_corr(x, mesh: Mesh):
     pairwise matrices (reference ``utils.py:977-1025`` / ``nbutils.py:424-445``
     feeding ``spatial_correlogram`` / ``decorrelation_length``).  Each shard
     standardizes its own site block, ``all_gather``s the standardized vectors
-    over ICI, and computes its ``[S_local, S_global]`` block on the MXU.
+    across the mesh, and computes its ``[S_local, S_global]`` block as one
+    matmul.
 
     x: [S, T] site-sharded (NaNs excluded pairwise-complete is NOT applied —
     rows with NaN yield NaN, as the reference's dense path).  Returns the
     [S, S] correlation matrix, sharded on the first axis.
     """
-    from functools import partial
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
 
     @partial(shard_map, mesh=mesh, in_specs=P(SITE_AXIS, None), out_specs=P(SITE_AXIS, None))
     def _f(xl):
@@ -88,7 +92,7 @@ def sharded_pairwise_corr(x, mesh: Mesh):
         nrm = jnp.sqrt(jnp.sum(xl * xl, axis=-1, keepdims=True))
         xl = xl / jnp.where(nrm == 0, 1, nrm)
         xg = jax.lax.all_gather(xl, SITE_AXIS, tiled=True)  # [S_global, T]
-        return jnp.einsum("lt,gt->lg", xl, xg, precision=jax.lax.Precision.HIGHEST)
+        return jnp.einsum("lt,gt->lg", xl, xg, precision=_HIGHEST)
 
     return _f(x)
 
@@ -108,12 +112,6 @@ def sharded_first_eof(x, mesh: Mesh):
 
     Returns ``(eof [S] sharded like x, var_frac scalar)``.
     """
-    from functools import partial
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
 
     @partial(shard_map, mesh=mesh, in_specs=P(SITE_AXIS, None), out_specs=(P(SITE_AXIS), P()))
     def _f(xl):  # [S_loc, T]
@@ -122,9 +120,9 @@ def sharded_first_eof(x, mesh: Mesh):
         mean = jnp.sum(jnp.where(finite, xl, 0.0), axis=-1, keepdims=True) / jnp.maximum(n, 1)
         a = jnp.where(finite, xl - mean, 0.0)
         site_ok = jnp.any(finite, axis=-1)
-        g = jax.lax.psum(a.T @ a, SITE_AXIS)                        # [T, T] replicated
+        g = jax.lax.psum(jnp.matmul(a.T, a, precision=_HIGHEST), SITE_AXIS)  # [T, T]
         w, u = jnp.linalg.eigh(g)
-        vloc = a @ u[:, -1]                                         # [S_loc]
+        vloc = jnp.matmul(a, u[:, -1], precision=_HIGHEST)          # [S_loc]
         ss = jax.lax.psum(jnp.sum(vloc * vloc), SITE_AXIS)
         vloc = vloc / jnp.where(ss == 0, 1.0, jnp.sqrt(ss))
         iloc = jnp.argmax(jnp.abs(vloc))
@@ -149,16 +147,11 @@ def sharded_rotation_apply(rot, x, mesh: Mesh):
     multivariate axis — the one place this domain has genuine tensor
     parallelism.  ``x`` [..., V, L] is sharded on V over the ``var`` mesh
     axis; each shard holds the matching column block of R, computes its
-    partial product on the MXU and a ``psum`` over ICI reduces the partials.
+    partial product and a ``psum`` over the ``var`` axis reduces the
+    partials.
 
     Returns y [..., V, L] sharded like x.
     """
-    from functools import partial
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
 
     V = x.shape[-2]
     nvar = mesh.shape[VAR_AXIS]
@@ -173,7 +166,7 @@ def sharded_rotation_apply(rot, x, mesh: Mesh):
     )
     def _apply(r_cols, x_rows):
         # r_cols [V, V/p]; x_rows [B_loc, V/p, L] -> partial [B_loc, V, L]
-        part = jnp.einsum("ij,...jl->...il", r_cols, x_rows)
+        part = jnp.einsum("ij,...jl->...il", r_cols, x_rows, precision=_HIGHEST)
         full = jax.lax.psum(part, VAR_AXIS)
         # keep this shard's rows of the result
         k = jax.lax.axis_index(VAR_AXIS)

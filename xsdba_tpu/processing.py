@@ -1,6 +1,6 @@
 """Pre/post-processing operations.
 
-TPU re-design of reference ``processing.py`` + ``_processing.py``: jitter,
+Device re-design of reference ``processing.py`` + ``_processing.py``: jitter,
 frequency adaptation, normalization, standardization, rank reordering —
 all as jitted array cores plus thin labeled wrappers.
 """
@@ -875,7 +875,7 @@ def spectral_filter(
 def grouped_time_indexes(times, group):
     """Integer time-index blocks per group and windowed group (reference
     processing.py:829-918): returns (g_idxs [G, L], gw_idxs [G, Lw]) with -1
-    padding.  On TPU this is just the Grouper's static lowering."""
+    padding.  On device this is just the Grouper's static lowering."""
     group = Grouper(group) if isinstance(group, str) else group
     gi_w = group.indexes(times)
     gi = Grouper(group.name).indexes(times) if group.window > 1 else gi_w
@@ -1027,7 +1027,7 @@ def interp_on_quantiles(
     """Public grouped/ungrouped quantile-table interpolation (reference
     utils.py:409-513).
 
-    ``mode="blend"`` (default) runs the TPU separable cyclic blend for
+    ``mode="blend"`` (default) runs the device separable cyclic blend for
     grouped lookups; ``mode="reference"`` evaluates the reference's exact
     scipy-griddata triangulation on host (utils.py:380-400) — use it when
     bit-parity with xsdba outputs matters more than speed.  The ungrouped

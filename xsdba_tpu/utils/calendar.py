@@ -1,7 +1,7 @@
 """CF-calendar time coordinates, without cftime.
 
-TPU-first rationale: the reference (Ouranosinc/xsdba) leans on xarray/pandas/cftime
-datetime indexes at *runtime* (``base.py:274-345``).  On TPU everything about the
+Rationale: the reference (Ouranosinc/xsdba) leans on xarray/pandas/cftime
+datetime indexes at *runtime* (``base.py:274-345``).  Under jit everything about the
 time axis is known at trace time, so we precompute plain int32/float32 component
 arrays (year/month/day/dayofyear/...) on the host once and feed them to jitted
 code as static metadata or device arrays.
@@ -174,7 +174,7 @@ class TimeIndex:
     """A dense time coordinate: per-step calendar components, precomputed on host.
 
     This is the static metadata from which :class:`~xsdba_tpu.utils.grouper.Grouper`
-    lowers groupings to integer index arrays (the TPU analogue of the reference's
+    lowers groupings to integer index arrays (the device analogue of the reference's
     runtime ``da.time.dt`` accessors, ``base.py:274-345``).
     """
 

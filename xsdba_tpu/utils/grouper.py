@@ -1,7 +1,7 @@
 """Time grouping, lowered to static integer index arrays.
 
 The reference's ``Grouper`` (``base.py:118-501``) performs runtime
-``groupby``/``rolling`` over xarray objects.  On TPU, all calendar structure is
+``groupby``/``rolling`` over xarray objects.  Here all calendar structure is
 known before tracing, so a grouping lowers to *static* host-computed arrays:
 
 - ``group_idx[T]``   int32 group id of each timestep (0-based),
@@ -45,7 +45,7 @@ class WindowMergePlan:
     union of the window-1 member lists of groups ``[g-half, g-half+window)``
     (true for all interior dayofyear groups and all "5D" groups), the grouped
     quantile can be computed by sorting each window-1 list ONCE and merging
-    ``window`` pre-sorted lists per group (``ops/pallas/merge_kernel.py``) —
+    ``window`` pre-sorted lists per group (``ops/merge.py``) —
     removing the reference rolling-construct's `window`-fold sort
     amplification (``base.py:261-265``).  Groups failing the union check
     (year-boundary wraps, series edges) are listed in ``edge_ids`` and go

@@ -1,12 +1,12 @@
 """Global/context options — mirrors reference ``options.py:12-83``.
 
-Beyond the reference's two output options, the TPU build exposes its
+Beyond the reference's two output options, this build exposes its
 windowed-quantile ENGINE choices here (the reference's pattern of
-config-as-options, ``options.py:28-83``): which backend computes windowed
-grouped quantiles, its extraction mode, and two Pallas program-shape
-toggles.  Each engine option's process default can also be set by an
-environment variable (``XSDBA_SELECTION_BACKEND=0`` etc.) so an A/B flip
-never needs a source edit.
+config-as-options, ``options.py:28-83``): whether the counting-selection
+backend may compute windowed grouped quantiles, its extraction form, and the
+merge engine's extraction mode.  Each engine option's process default can
+also be set by an environment variable (``XSDBA_SELECTION_BACKEND=0`` etc.)
+so an A/B flip never needs a source edit.
 
 Engine options are resolved OUTSIDE jit at call sites and threaded into the
 compiled programs as static arguments, so flipping one under ``set_options``
@@ -23,12 +23,9 @@ __all__ = [
     "EXTRA_OUTPUT",
     "EXTRACT_FLAT",
     "EXTRACT_MODE",
-    "FUSE_FOLD_CLASSES",
     "OPTIONS",
     "SELECTION_BACKEND",
     "SELECTION_MODE",
-    "SELECTION_ON_TPU",
-    "SELECTION_SORT",
     "get_option",
     "set_options",
 ]
@@ -38,30 +35,17 @@ AS_DATASET = "as_dataset"
 #: Allow the counting-selection backend for windowed grouped quantiles
 #: (ops/selquant.py).  False forces the merge cascade everywhere.
 SELECTION_BACKEND = "selection_backend"
-#: Route TPU windowed quantiles through the selection backend too (the
-#: measured default keeps the merge cascade on TPU; docs/PERFORMANCE.md
-#: "Selection-class roofline").
-SELECTION_ON_TPU = "selection_on_tpu"
-#: Selection extraction engine: "auto" (per-backend measured default:
-#: gather on CPU, emit on TPU), "emit", or "gather".
+#: Selection extraction engine: "auto" (the platform's measured engine,
+#: ``ops.quantile.windowed_engine``), "emit", or "gather".
 SELECTION_MODE = "selection_mode"
-#: Selection stage-1 sort implementation: "auto" (Pallas bitonic network on
-#: TPU f32 — measured 14% under ``lax.sort`` at the heavy shape,
-#: docs/PERFORMANCE.md; ``lax.sort`` elsewhere), "pallas", "xla" (the same
-#: network lowered through plain XLA — the CPU-testable form), or "lax".
-SELECTION_SORT = "selection_sort"
-#: Run all merge-fold classes in ONE Pallas program (measured faster on
-#: v5e) vs per-class launches.
-FUSE_FOLD_CLASSES = "fuse_fold_classes"
-#: Static-count extraction form: flat constant-index gather (True) vs
-#: 32-wide strip selects (False); bit-identical outputs.  Subsumed by
-#: ``extract_mode`` — kept as the back-compat boolean.
+#: Read by nothing (``extract_mode`` selects the extraction); accepted by
+#: ``set_options`` for compatibility.
 EXTRACT_FLAT = "extract_flat"
 #: Static-count extraction engine: "strip" (32-wide static slices +
 #: constant-mask selects), "flat" (one constant-index gather from the
-#: flattened group axis), "matmul" (one-hot MXU contraction at
+#: flattened group axis), "matmul" (one-hot matmul contraction at
 #: Precision.HIGHEST — bit-exact for f32, see ops/quantile.py), or "auto"
-#: (the measured per-backend default; honors ``extract_flat=True``).
+#: (the flat gather).
 EXTRACT_MODE = "extract_mode"
 
 
@@ -76,17 +60,13 @@ _DEFAULTS = {
     EXTRA_OUTPUT: False,
     AS_DATASET: False,
     SELECTION_BACKEND: _env_bool("XSDBA_SELECTION_BACKEND", True),
-    SELECTION_ON_TPU: _env_bool("XSDBA_SELECTION_ON_TPU", False),
     SELECTION_MODE: os.environ.get("XSDBA_SELECTION_MODE", "auto"),
-    SELECTION_SORT: os.environ.get("XSDBA_SELECTION_SORT", "auto"),
-    FUSE_FOLD_CLASSES: _env_bool("XSDBA_FUSE_FOLD_CLASSES", True),
     EXTRACT_FLAT: _env_bool("XSDBA_EXTRACT_FLAT", False),
     EXTRACT_MODE: os.environ.get("XSDBA_EXTRACT_MODE", "auto"),
 }
 
 _VALIDATORS = {
     SELECTION_MODE: lambda v: v in ("auto", "emit", "gather"),
-    SELECTION_SORT: lambda v: v in ("auto", "pallas", "xla", "lax"),
     EXTRACT_MODE: lambda v: v in ("auto", "strip", "flat", "matmul"),
 }
 # process-global, like the reference's plain OPTIONS dict (options.py:12-83):

@@ -1,7 +1,7 @@
 """Deterministic randomness.
 
 The reference uses the unseeded global numpy RNG (jitter, adapt_freq, OTC,
-rotation matrices).  On TPU randomness must be explicit: this module keeps a
+rotation matrices).  Under jit randomness must be explicit: this module keeps a
 process-global JAX PRNG key that ops split from.  Reproducibility is the
 default (seed 0); call :func:`seed` to change it — the reference's own tests
 seed numpy the same way.
